@@ -118,9 +118,9 @@ class SolverConfig:
     td: float = 0.0
     excitation_threshold: float = 0.25  # checkIMUExcitation (estimator.cpp:232)
     outlier_reproj_px: float = 3.0  # post-solve mean-reprojection culling gate
-    # steady-state window-solve precision: float32 runs the TPU-native Pallas
-    # kernels at full rate; marginalization eigendecompositions and the init
-    # BA always stay float64 regardless (mixed-precision split)
+    # steady-state window-solve precision: float32 on the accelerator;
+    # marginalization eigendecompositions and the init BA always stay
+    # float64 regardless (mixed-precision split)
     solve_dtype: str = "float32"
 
 

@@ -98,9 +98,8 @@ def _hessian_blocks(jacs_with_offsets, W):
 
 
 def _spd_solve(M, B, rel_eps: float = 0.0):
-    """Cholesky solve of a symmetric PSD system (TPU XLA has no f64
-    LuDecomposition expander, so jnp.linalg.solve/inv are unavailable in
-    the x64 device code; Cholesky/eigh/SVD/QR all are)."""
+    """Cholesky solve of a symmetric PSD system (the SPD structure makes
+    Cholesky the cheaper and more stable factorization than LU)."""
     n = M.shape[0]
     if rel_eps:
         M = M + rel_eps * jnp.maximum(jnp.max(jnp.abs(jnp.diag(M))), 1.0) * jnp.eye(
@@ -160,8 +159,8 @@ def _kld_diagnostic(Jr, U, inv_w, keep, infos_with_offsets, n_dim):
     A_k = A * k[:, None] * k[None, :] + jnp.diag(1.0 - k)
     D_k = jnp.where(keep, 1.0 / jnp.where(keep, inv_w, 1.0), 1.0)
     a = jnp.sum(jnp.diag(A_k) * jnp.where(keep, inv_w, 0.0))
-    # A_k is SPD (kept subspace + identity padding); Cholesky logdet avoids
-    # the LU-based slogdet (no f64 LU expander on TPU)
+    # A_k is SPD (kept subspace + identity padding): Cholesky logdet instead
+    # of the LU-based slogdet
     L = jnp.linalg.cholesky(A_k + 1e-14 * jnp.eye(A_k.shape[0], dtype=Jr.dtype))
     logdet_b = 2.0 * jnp.sum(jnp.log(jnp.diag(L)))
     logdet_Dinv = jnp.sum(jnp.where(keep, jnp.log(inv_w), 0.0))

@@ -49,8 +49,8 @@ class ImuNoise(NamedTuple):
     @staticmethod
     def from_config(noise_cfg, dtype=None) -> "ImuNoise":
         # host (numpy) constants: these are closed over by jitted
-        # preintegration programs, and device-array constants in a jit
-        # closure cost seconds each to bake through a remote runtime
+        # preintegration programs, which embed them at trace time instead of
+        # capturing committed device arrays
         import numpy as _np
 
         dt = _np.dtype(dtype or _np.float64)

@@ -1,4 +1,4 @@
-"""TPU-native frontend: the batched camodocal camera-model family
+"""Frontend: the batched camodocal camera-model family
 (pinhole+radtan, Mei, Kannala-Brandt, Scaramuzza), image kernels
 (blur/pyramid/CLAHE/Shi-Tomasi), pyramidal Lucas-Kanade tracking, and the
 feature tracker orchestration (replaces src/feature_tracker/* + OpenCV +

@@ -44,8 +44,8 @@ class PinholeRadtan(NamedTuple):
 
     @staticmethod
     def from_config(cam) -> "PinholeRadtan":
-        mk = lambda v: np.asarray(v, np.float64)  # host consts: device-array
-        # constants closed over by jit cost seconds each on a remote runtime
+        mk = lambda v: np.asarray(v, np.float64)  # host consts: embedded
+        # at trace time by the jits that close over them
         return PinholeRadtan(
             mk(cam.fx), mk(cam.fy), mk(cam.cx), mk(cam.cy),
             mk(cam.k1), mk(cam.k2), mk(cam.p1), mk(cam.p2),
@@ -117,8 +117,8 @@ class MeiCamera(NamedTuple):
 
     @staticmethod
     def from_config(cam) -> "MeiCamera":
-        mk = lambda v: np.asarray(v, np.float64)  # host consts: device-array
-        # constants closed over by jit cost seconds each on a remote runtime
+        mk = lambda v: np.asarray(v, np.float64)  # host consts: embedded
+        # at trace time by the jits that close over them
         return MeiCamera(
             mk(cam.xi), mk(cam.fx), mk(cam.fy), mk(cam.cx), mk(cam.cy),
             mk(cam.k1), mk(cam.k2), mk(cam.p1), mk(cam.p2),
@@ -191,8 +191,8 @@ class EquidistantCamera(NamedTuple):
 
     @staticmethod
     def from_config(cam) -> "EquidistantCamera":
-        mk = lambda v: np.asarray(v, np.float64)  # host consts: device-array
-        # constants closed over by jit cost seconds each on a remote runtime
+        mk = lambda v: np.asarray(v, np.float64)  # host consts: embedded
+        # at trace time by the jits that close over them
         k2, k3, k4, k5 = cam.kb
         return EquidistantCamera(
             mk(cam.fx), mk(cam.fy), mk(cam.cx), mk(cam.cy),
@@ -262,8 +262,8 @@ class OcamCamera(NamedTuple):
 
     @staticmethod
     def from_config(cam) -> "OcamCamera":
-        mk = lambda v: np.asarray(v, np.float64)  # host consts: device-array
-        # constants closed over by jit cost seconds each on a remote runtime
+        mk = lambda v: np.asarray(v, np.float64)  # host consts: embedded
+        # at trace time by the jits that close over them
         return OcamCamera(
             mk(list(cam.ocam_poly)), mk(list(cam.ocam_inv_poly)),
             mk(cam.ocam_cde[0]), mk(cam.ocam_cde[1]), mk(cam.ocam_cde[2]),

@@ -25,9 +25,9 @@ def _gauss_kernel(sigma: float, radius: int, dtype):
 
 def _conv1d_axis(img, k, axis: int):
     """1D correlation along `axis` with SAME (zero) padding, as shift-add:
-    sum_i k[i] * img shifted by i. Single-channel convs through lax.conv hit
-    the MXU with C=1 (measured ~3 ms per tiny conv on a v5e at 320x240); the
-    shift-add form is pure VPU elementwise work."""
+    sum_i k[i] * img shifted by i: elementwise work that XLA fuses, instead
+    of a single-channel lax.conv. Which is faster on the H100 is
+    unmeasured."""
     r = (k.shape[0] - 1) // 2
     H, W = img.shape
     pad_width = [(0, 0), (0, 0)]
@@ -92,7 +92,7 @@ def nms_topk(response, k: int, nms_radius: int, border: int = 8, forbid_mask=Non
     H, W = response.shape
     r = nms_radius
     # square max-pool is separable: two 1D passes instead of one (2r+1)^2
-    # window (33x33 at min_dist 16 cost ~39 ms on a v5e; separable is ~1 ms)
+    # window (33x33 at min_dist 16)
     pooled = jax.lax.reduce_window(
         response, -jnp.inf, jax.lax.max, (2 * r + 1, 1), (1, 1), "SAME"
     )

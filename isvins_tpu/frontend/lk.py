@@ -3,14 +3,12 @@
 Replaces cv::calcOpticalFlowPyrLK (21x21 window, 3 levels;
 feature_tracker_simple.cpp:114).
 
-TPU-first layout: per feature and iteration we take ONE vmapped
-`lax.dynamic_slice` of a (P+3, P+3) integer-aligned window (XLA lowers the
-vmap to a block gather — contiguous rows, fast on TPU) and do the subpixel
-bilinear interpolation as four shifted whole-patch multiplies (pure VPU
-elementwise math). The earlier design gathered 441 scattered pixels per
-feature per iteration through `img[y, x]` advanced indexing — a scalar
-gather storm that cost ~90 ms per call on a v5e at 320x240; this one is
-~2 orders of magnitude cheaper. Images are edge-padded once per level so
+Layout: per feature and iteration we take ONE vmapped `lax.dynamic_slice`
+of a (P+3, P+3) integer-aligned window (XLA lowers the vmap to a block
+gather of contiguous rows) and do the subpixel bilinear interpolation as
+four shifted whole-patch multiplies (elementwise math), instead of
+gathering 441 scattered pixels per feature per iteration through
+`img[y, x]` advanced indexing. Images are edge-padded once per level so
 border features degrade gracefully instead of sliding the window.
 
 The iterative update runs in a `lax.fori_loop` — one jit per

@@ -66,7 +66,7 @@ def se3_exp(xi):
 def se3_log(p, q):
     """Inverse of se3_exp: (p,q) -> (...,6) [v; w]."""
     w = quat_log(q)
-    # closed form (no LU: TPU XLA has no f64 LuDecomposition expander)
+    # closed form (no LU solve)
     v = jnp.einsum("...ij,...j->...i", left_jacobian_inv_so3(w), p)
     return jnp.concatenate([v, w], axis=-1)
 

@@ -1,7 +1,7 @@
 """Relative pose from 2D-2D correspondences on the normalized plane.
 
 Replaces the reference's cv::findFundamentalMat(RANSAC) + recoverPose
-(src/initial/solve_5pts.cpp:193–227) with a TPU-batched 8-point essential
+(src/initial/solve_5pts.cpp:193–227) with a batched 8-point essential
 matrix RANSAC: all hypotheses are solved as one vmapped batch of 8x9 SVDs,
 scored with Sampson distances in one (S, n) broadcast, and the winner's
 inlier set is refit. On calibrated (normalized-plane) coordinates the
@@ -37,9 +37,8 @@ def _eight_point(p1, p2):
 
 def epipolar_inliers(p1, p2, valid, samples, thresh_sq):
     """Epipolar inlier classification for the tracker's outlier rejection,
-    SVD-FREE so it lowers on TPU in f32 (the f32 SVD 8-point variant trips
-    an XLA:TPU TransposeFolding crash, probed round 3; the eigh-of-Gram
-    nullspace avoids it). Hypotheses from `samples` (S,8) row indices into
+    SVD-FREE (the eigh-of-Gram nullspace) so it runs in f32 inside the
+    tracker's fused device step. Hypotheses from `samples` (S,8) row indices into
     p1/p2; each 8-point solve is the smallest eigenvector of A^T A (9x9
     symmetric eigh, batched). The rank-2 essential projection is SKIPPED —
     for inlier CLASSIFICATION the nullspace E's Sampson distances separate

@@ -47,8 +47,7 @@ def _pnp_gn_core(pts3d, pts2d, w, q_cw, t_cw, iters: int = 10):
         rf = r.reshape(-1)
         H = Jf.T @ Jf + 1e-8 * jnp.eye(6, dtype=Jf.dtype)
         g = -(Jf.T @ rf)
-        # Cholesky instead of LU: H is SPD, and TPU XLA has no f64 LU
-        # expander ("Only F32 and C64 types are implemented in LuDecomposition")
+        # Cholesky instead of LU: H is SPD
         dx = jax.scipy.linalg.cho_solve((jnp.linalg.cholesky(H), True), g)
         t_new = t + dx[:3]
         q_new = quat_normalize(quat_mul(q, so3_exp_quat(dx[3:])))

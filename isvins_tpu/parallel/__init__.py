@@ -1,5 +1,5 @@
 """Multi-device parallelism: sequence-batched VIO over a device mesh and the
-distributed solver shardings (SURVEY.md §2.3 TPU-native equivalents)."""
+distributed solver shardings (SURVEY.md §2.3)."""
 
 from .sharded import (  # noqa: F401
     make_mesh,

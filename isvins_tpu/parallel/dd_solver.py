@@ -44,7 +44,6 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
-from jax.experimental.shard_map import shard_map
 
 from ..factors.priors import relpose_residual_jacobians, rollpitch_residual_jacobians
 from ..geom import quat_mul, quat_normalize, so3_exp_quat
@@ -258,7 +257,7 @@ def _build_dd_solver(mesh: Mesh, K: int, Ki: int, NB: int, iters: int,
 
     @jax.jit
     @partial(
-        shard_map,
+        jax.shard_map,
         mesh=mesh,
         in_specs=(
             P(), P(), P(), P(),          # t q active fixed (replicated)
@@ -271,7 +270,7 @@ def _build_dd_solver(mesh: Mesh, K: int, Ki: int, NB: int, iters: int,
             P(axis), P(axis), P(axis),   # l_ok l_ai l_aj
         ),
         out_specs=(P(), P(), P(), P()),
-        check_rep=False,
+        check_vma=False,
     )
     def run(t, q, active, fixed, bnd_glob, bnd_valid, is_iface,
             e_gi, e_gj, e_dt, e_dq, e_sqrt, e_ok, e_ai, e_aj,

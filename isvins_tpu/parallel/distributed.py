@@ -21,7 +21,6 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
-from jax.experimental.shard_map import shard_map
 
 from ..factors.priors import relpose_residual_jacobians, rollpitch_residual_jacobians
 from ..geom import quat_mul, quat_normalize, so3_exp_quat
@@ -179,7 +178,7 @@ def _build_distributed_solver(mesh: Mesh, K: int, iters: int, with_cov: bool,
 
     @jax.jit
     @partial(
-        shard_map,
+        jax.shard_map,
         mesh=mesh,
         in_specs=(
             P(), P(), P(), P(),
@@ -190,8 +189,8 @@ def _build_distributed_solver(mesh: Mesh, K: int, iters: int, with_cov: bool,
         out_specs=(P(), P(), P(), P()),
         # the sharded-covariance path derives per-device values from
         # axis_index and restores replication with an all_gather, which the
-        # static replication checker cannot infer
-        check_rep=False,
+        # static varying-manual-axes checker cannot infer
+        check_vma=False,
     )
     def run(t, q, active, fixed, e_i, e_j, e_dt, e_dq, e_sqrt, e_valid,
             rp_i, rp_q, rp_sqrt, rp_valid,

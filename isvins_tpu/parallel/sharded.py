@@ -1,7 +1,7 @@
 """Device-mesh parallelism for the VIO engine.
 
 The reference's only concurrency is 7 queue-coupled pthreads (SURVEY.md §1).
-The TPU-native scaling story (§2.3) is:
+The scaling story (§2.3) is:
 
 - **data parallelism over sequences**: many EuRoC sequences run concurrently,
   one window problem per mesh slice — `sharded_batch_solve` shards the
@@ -12,7 +12,7 @@ The TPU-native scaling story (§2.3) is:
 
 - **model parallelism inside the solve** (for the pose-graph / global BA
   path): keyframe blocks sharded over the mesh with the reduced camera system
-  assembled via psum — see posegraph.distributed (added with the pose graph).
+  assembled via psum — see parallel/dd_solver.py.
 """
 
 from __future__ import annotations

@@ -1,13 +1,11 @@
 """BRIEF descriptors + batched Hamming matching.
 
 Replaces DVision::BRIEF (thirdparty/DVision/BRIEF.{h,cpp}, pattern from
-config/brief_pattern.yml) and DBoW2's per-descriptor scoring with TPU-batched
+config/brief_pattern.yml) and DBoW2's per-descriptor scoring with batched
 kernels: descriptor extraction is one vmapped gather of 2x256 bilinear
 samples per keypoint, bit packing is a (256,)->(8,)uint32 dot with powers of
 two, and Hamming distance is XOR + `lax.population_count` broadcast over the
-full (n_query, n_db) matrix — the engine's descriptor-matching "MXU-shaped"
-workload (BASELINE.json: "DBoW binary vocabulary scoring -> TPU batched
-Hamming matching").
+full (n_query, n_db) matrix.
 
 The pattern itself is generated (seeded isotropic Gaussian pairs, the classic
 BRIEF-32 recipe) rather than loaded from the reference's yml: descriptors
@@ -39,9 +37,8 @@ _PS = 28  # patch side: offsets are clipped to +-12, bilinear needs +1, pad 2
 def _selection_matrices(pattern_bytes: bytes, n_bits: int):
     """Constant (n_bits, PS*PS) bilinear-weight matrices for the a/b sample
     points of the pattern, evaluated at the patch center. Sampling the fixed
-    pattern then becomes patches @ S.T — two small matmuls on the MXU
-    instead of 2*n_bits gathers per keypoint (the gather path cost ~180 ms
-    per 512-point keyframe on a v5e; this is <1 ms)."""
+    pattern then becomes patches @ S.T — two small matmuls instead of
+    2*n_bits gathers per keypoint."""
     pattern = np.frombuffer(pattern_bytes, np.float64).reshape(n_bits, 4)
 
     def mat(off):

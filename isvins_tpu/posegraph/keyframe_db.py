@@ -62,7 +62,7 @@ class KeyframeDB:
 
         # retrieval descriptors: a fixed-size subsample of each keyframe's
         # descriptors, matched by brute-force batched Hamming (the DBoW
-        # replacement — BASELINE.json "TPU batched Hamming matching")
+        # replacement's pre-vocabulary fallback)
         self.R = 64
         self.ret_desc = np.zeros((K, self.R, 8), dtype=np.uint32)
         self.ret_valid = np.zeros((K, self.R), dtype=bool)
@@ -301,24 +301,13 @@ class KeyframeDB:
             Kb *= 2
         Kb = min(Kb, self.K)
         dbv = self.ret_valid[:Kb] & (np.arange(Kb) < hi)[:, None]
-        if jax.default_backend() == "tpu":
-            from ..ops.hamming_pallas import retrieval_scores_pallas
-
-            scores = np.asarray(
-                retrieval_scores_pallas(
-                    jnp.asarray(self.ret_desc[idx]), jnp.asarray(self.ret_valid[idx]),
-                    jnp.asarray(self.ret_desc[:Kb]), jnp.asarray(dbv),
-                    thresh=match_thresh,
-                )
-            )[:hi]
-        else:
-            scores = np.asarray(
-                _retrieval_scores(
-                    jnp.asarray(self.ret_desc[idx]), jnp.asarray(self.ret_valid[idx]),
-                    jnp.asarray(self.ret_desc[:Kb]), jnp.asarray(dbv),
-                    match_thresh,
-                )
-            )[:hi]
+        scores = np.asarray(
+            _retrieval_scores(
+                jnp.asarray(self.ret_desc[idx]), jnp.asarray(self.ret_valid[idx]),
+                jnp.asarray(self.ret_desc[:Kb]), jnp.asarray(dbv),
+                match_thresh,
+            )
+        )[:hi]
         k = min(top_k, hi)
         order = np.argsort(-scores)[:k]
         return [int(o) for o in order if scores[o] >= abs_frac]

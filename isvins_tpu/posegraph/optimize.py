@@ -5,9 +5,9 @@ Replaces ceres SPARSE_NORMAL_CHOLESKY + ceres::Covariance
 6K x 6K normal system is assembled from batched edge kernels (sequential
 relative-pose edges, per-keyframe roll-pitch edges, Huber-weighted loop
 edges) via one-hot einsum expansion, solved by dense Cholesky, and the
-per-pose 6x6 covariance blocks are read off the dense inverse — on a TPU the
-dense factorization of a few-thousand-dim system is MXU work and beats
-sparse scalar pivoting by orders of magnitude.
+per-pose 6x6 covariance blocks are read off the dense inverse — a dense
+factorization of a few-thousand-dim system runs as dense linear algebra on
+the accelerator instead of sparse scalar pivoting.
 
 Shapes are static per capacity bucket (power of two), masked to the active
 count; the first pose is gauge-fixed like the reference (:299–302).
@@ -169,7 +169,7 @@ def _next_pow2(n):
 
 
 class PendingOptimize:
-    """A dispatched-but-not-collected pose-graph optimization (the TPU-native
+    """A dispatched-but-not-collected pose-graph optimization (the
     analogue of the reference's optimizeCS poll thread, pose_graph.cpp:425:
     the device computes while the host keeps streaming frames; results are
     applied with eventually-consistent drift semantics, :112–120).
@@ -327,10 +327,11 @@ def optimize_pose_graph(db, first_idx: int, cur_idx: int, iters: int = 10,
         loop_w[li] = db.loop_weight[k]
         loop_valid[li] = True
 
-    # solve precision: f32 on accelerator backends (the dense 6K x 6K
-    # factorization is MXU work; f64 on TPU is emulated and the estimator's
-    # mixed-precision policy applies here too — position magnitudes are
-    # O(100 m), f32 keeps ~1e-5 m of headroom), f64 on CPU
+    # solve precision: f32 on accelerator backends (the estimator's
+    # mixed-precision policy; position magnitudes are O(100 m), f32 keeps
+    # ~1e-5 m of headroom), f64 on CPU. The H100 runs f64 natively: whether
+    # one f64 policy costs less than this split is unmeasured (ROADMAP
+    # Queue 3 debt 3).
     sdtype = np.float64 if jax.default_backend() == "cpu" else np.float32
     t = t.astype(sdtype)
     q = q.astype(sdtype)

@@ -1,9 +1,9 @@
 """Component-planes projection-factor evaluation.
 
 The naive vmapped evaluation (factors/projection.py) operates on (N,3) and
-(N,3,3) tensors: every op puts 3-element vectors in the 128-wide TPU lane
-dimension, wasting ~40x of the VPU. This module evaluates the same math as
-pure elementwise chains over (N,)-shaped component planes — and exploits that
+(N,3,3) tensors, so every op works on 3-element minor dimensions. This module
+evaluates the same math as pure elementwise chains over (N,)-shaped
+component planes, which XLA fuses into few kernels — and exploits that
 every rotation matrix in the Jacobian chain is a *composition of rotations*,
 so it can be formed by quaternion products instead of 3x3 matmuls:
 

@@ -11,12 +11,13 @@ initFactorGraph's full-window BA (:667–743):
   on frame Vo-1, Vo-1 relative-pose edges over the VO segment, roll-pitch
   edges — all with Cauchy(1.0) like the reference (estimator.cpp:1102–1117)
 
-TPU-native architecture: every factor family is evaluated with `vmap`, its
-block Jacobians are expanded into dense rows of the pose system with one-hot
-einsums (MXU work — no scatters), the Gauss-Newton Hessian is one `J^T J`
-matmul, landmarks are Schur-eliminated with a single (D,F)x(F,D) matmul, and
-the Levenberg–Marquardt accept/reject loop is branchless inside
-`lax.fori_loop`. All shapes static; masks handle validity.
+Architecture: every factor family is evaluated with `vmap`, its block
+Jacobians are expanded into dense rows of the pose system with one-hot
+einsums (dense products, no scatters), the Gauss-Newton Hessian is one
+`J^T J` matmul, landmarks are Schur-eliminated with a single (D,F)x(F,D)
+matmul, and the Levenberg–Marquardt accept/reject loop is branchless inside
+`lax.while_loop`. All shapes static; masks handle validity. Float32 dots run
+at the package's pinned matmul precision (isvins_tpu/__init__.py).
 
 Column layout of the reduced system (D = 15*B + 6):
   pose i  -> [6i, 6i+6)
@@ -45,57 +46,7 @@ from ..factors.priors import (
     se3_prior_residual_jacobians,
 )
 from ..geom import quat_mul, quat_normalize, so3_exp_quat
-
-# Pallas fused Schur-correction kernel in the LM body: None = auto (on for
-# the TPU backend, off elsewhere). The choice is captured at trace time, so
-# flip it before the first solve_window call of a given shape.
-USE_PALLAS_SCHUR: bool | None = None
-
-# Pallas fused projection evaluation (ops/proj_pallas.py): same auto rule.
-# The window solve is kernel-launch bound (one normal-equations build
-# compiles to ~450 kernels; 630 MB / 1.9 GFLOP for a 10-iteration solve vs
-# 6.6 ms measured = ~9x above the HBM roofline), and the projection chain is
-# the longest run of small fusions — collapsing it into one VMEM-resident
-# kernel is worth more than any FLOP-level tuning.
-USE_PALLAS_PROJ: bool | None = None
-
-# Pallas fused IMU factor evaluation (ops/imu_pallas.py): the vmapped XLA
-# evaluation lowers to ~100 small kernels whose dispatch gaps cost ~100 us
-# per LM iteration; the kernel computes all residuals + compact Jacobians
-# in one program and whitening becomes one block-diagonal MXU matmul.
-USE_PALLAS_IMU: bool | None = None
-
-# Pallas fused LM linear step (ops/linstep_pallas.py): Schur correction +
-# block insert + damping + blocked Cholesky + triangular solves + landmark
-# back-substitution as ONE kernel. Profiled per iteration the XLA lowering
-# of this step costs ~200 us, dominated by a 73 us layout copy feeding the
-# Cholesky custom-call and the fixed gaps between ~40 tiny dispatches.
-USE_PALLAS_LINSTEP: bool | None = None
-
-
-def _pallas_schur_enabled() -> bool:
-    if USE_PALLAS_SCHUR is not None:
-        return USE_PALLAS_SCHUR
-    return jax.default_backend() == "tpu"
-
-
-def _pallas_proj_enabled() -> bool:
-    if USE_PALLAS_PROJ is not None:
-        return USE_PALLAS_PROJ
-    return jax.default_backend() == "tpu"
-
-
-def _pallas_imu_enabled() -> bool:
-    if USE_PALLAS_IMU is not None:
-        return USE_PALLAS_IMU
-    return jax.default_backend() == "tpu"
-
-
-def _pallas_linstep_enabled() -> bool:
-    if USE_PALLAS_LINSTEP is not None:
-        return USE_PALLAS_LINSTEP
-    return jax.default_backend() == "tpu"
-
+from .proj_fast import eval_proj_rows
 
 class WindowDims(NamedTuple):
     """Static problem shapes (python ints; captured at trace time)."""
@@ -171,7 +122,7 @@ class PriorState(NamedTuple):
         """Host-side (numpy) empty prior set. Numpy leaves keep the host
         state machine off the accelerator: the estimator stores and mutates
         priors in host memory and only the jitted solve/marg calls move them
-        across the device boundary (remote-TPU transfers are ~ms each)."""
+        across the device boundary."""
         import numpy as _np
 
         dtype = dtype or _np.float64
@@ -244,28 +195,16 @@ def _eval_imu(state: WindowState, imu: ImuFactors, G, dims: WindowDims):
     j_idx = i_idx + 1
     S = imu.sqrt  # precomputed: cov is constant across LM iterations
 
-    if _pallas_imu_enabled() and dtype == jnp.float32:
-        from ..ops.imu_pallas import imu_rows_pallas
-
-        pre = imu.pre
-        r, Jcat = imu_rows_pallas(
-            state.P[:-1], state.Q[:-1], state.V[:-1], state.Ba[:-1], state.Bg[:-1],
-            state.P[1:], state.Q[1:], state.V[1:], state.Ba[1:], state.Bg[1:],
-            pre.delta_p, pre.delta_q, pre.delta_v, pre.sum_dt, pre.ba, pre.bg,
-            pre.jac, G,
+    def one(k):
+        pre_k = jax.tree_util.tree_map(lambda a: a[k], imu.pre)
+        return imu_residual_jacobians(
+            pre_k, G,
+            state.P[k], state.Q[k], state.V[k], state.Ba[k], state.Bg[k],
+            state.P[k + 1], state.Q[k + 1], state.V[k + 1], state.Ba[k + 1], state.Bg[k + 1],
         )
-    else:
 
-        def one(k):
-            pre_k = jax.tree_util.tree_map(lambda a: a[k], imu.pre)
-            return imu_residual_jacobians(
-                pre_k, G,
-                state.P[k], state.Q[k], state.V[k], state.Ba[k], state.Bg[k],
-                state.P[k + 1], state.Q[k + 1], state.V[k + 1], state.Ba[k + 1], state.Bg[k + 1],
-            )
-
-        r, J_pi, J_vbi, J_pj, J_vbj = jax.vmap(one)(i_idx)
-        Jcat = jnp.concatenate([J_pi, J_vbi, J_pj, J_vbj], axis=2)  # (n,15,30)
+    r, J_pi, J_vbi, J_pj, J_vbj = jax.vmap(one)(i_idx)
+    Jcat = jnp.concatenate([J_pi, J_vbi, J_pj, J_vbj], axis=2)  # (n,15,30)
     w = imu.valid.astype(dtype)[:, None]
     # single whitening matmul over the concatenated (15, 6+9+6+9) block
     Jcat = jnp.einsum("nab,nbk->nak", S, Jcat) * w[..., None]
@@ -287,9 +226,8 @@ def _eval_imu(state: WindowState, imu: ImuFactors, G, dims: WindowDims):
         [pose_part, vb_part, jnp.zeros((B - 1, 15, 6), dtype)], axis=2
     )
     # cost as a per-factor VECTOR: the callers concatenate every family's
-    # contributions and reduce ONCE — each scalar accumulation op otherwise
-    # becomes its own ~7 us SMEM kernel (14 of them per LM iteration,
-    # profiled ~100 us/iteration of pure dispatch)
+    # contributions and reduce ONCE instead of one scalar reduction per
+    # family
     cvec = 0.5 * jnp.sum(r_w * r_w, axis=1)
     return r_w, Jrows, cvec
 
@@ -298,17 +236,17 @@ def _eval_proj(state: WindowState, proj: ProjFactors, pixel_sqrt_info, dims: Win
                estimate_extrinsic: bool = False):
     """Whitened+robust projection residuals (N,2) and COMPACT block
     Jacobians J_pi/J_pj/J_ex (N,2,6) + landmark partials (N,2) + cost vector.
-    The caller accumulates the normal equations block-wise — the dense
-    (N,2,6B) row expansion this used to return cost more in TPU layout
-    copies than the whole factor evaluation (see build_normal_equations)."""
+    The caller accumulates the normal equations block-wise instead of
+    materializing dense (N,2,6B) rows (see build_normal_equations)."""
     B, F, D = dims.B, dims.F, dims.D
     dtype = state.P.dtype
 
-    # Per-observation state lookups as one-hot matmuls, not gathers: on TPU
-    # a row gather of (N,) indices lowers to a serialized gather fusion
-    # (~130-190 us each at N=3072 batched x8, 5 of them per LM iteration,
-    # profiled); a (N,B)x(B,k) one-hot product is MXU work and the one-hots
-    # are reused by the block accumulation in build_normal_equations.
+    # Per-observation state lookups as one-hot matmuls, not gathers: the
+    # one-hots are reused by the block accumulation in
+    # build_normal_equations. They are exact only at full float32 precision
+    # (a TF32 product would round a 3 m position to the millimetre), hence the
+    # package-wide HIGHEST matmul pin. Gather vs one-hot on the H100 is
+    # unmeasured (ROADMAP Queue 1 item 3).
     oh_i = _pose_cols_onehot(proj.idx_i, B, dtype)
     oh_j = _pose_cols_onehot(proj.idx_j, B, dtype)
     oh_f = jax.nn.one_hot(proj.fidx, F, dtype=dtype)
@@ -320,14 +258,8 @@ def _eval_proj(state: WindowState, proj: ProjFactors, pixel_sqrt_info, dims: Win
 
     if not estimate_extrinsic:
         # component-planes fast path (solver/proj_fast.py): elementwise over
-        # N lanes, rotations composed as quaternion products; on TPU the
-        # whole chain runs as one fused Pallas kernel (ops/proj_pallas.py)
-        if _pallas_proj_enabled() and state.P.dtype == jnp.float32:
-            from ..ops.proj_pallas import proj_rows_pallas as _proj_rows
-        else:
-            from .proj_fast import eval_proj_rows as _proj_rows
-
-        r, J_pi, J_pj, J_dep = _proj_rows(
+        # N observations, rotations composed as quaternion products
+        r, J_pi, J_pj, J_dep = eval_proj_rows(
             proj.pts_i, proj.pts_j, P_i, Q_i, P_j, Q_j,
             state.tic, state.qic, dep_g, proj.valid,
         )
@@ -361,9 +293,8 @@ def _eval_proj(state: WindowState, proj: ProjFactors, pixel_sqrt_info, dims: Win
 
 
 def _atb(A, B):
-    """A^T @ B without materializing the transpose: TPU pays a real layout
-    shuffle for `.T @` (measured 2x on the (6144,114) Hessian product); a
-    dot_general contracting dim 0 streams A as-is through the MXU."""
+    """A^T @ B as one dot_general contracting dim 0 (no transpose
+    materialized)."""
     return jax.lax.dot_general(
         A, B, dimension_numbers=(((0,), (0,)), ((), ())),
         preferred_element_type=A.dtype,
@@ -463,19 +394,20 @@ def build_normal_equations(
 
     The projection Hessian is accumulated BLOCK-WISE: per observation the
     compact 6x6 products (J_pi^T J_pj etc.) are formed first and placed into
-    the (B,B) block grid with small one-hot matmuls. The previous row
-    expansion materialized (N,2,6B) dense Jacobian rows; profiled batched x8
-    on v5e those rows cost ~1.7 ms/LM-iteration of pure layout copies
-    (f32[8,3072,2,18,6] retilings) — 60% of the whole iteration — while the
-    block path's largest intermediate is the (N, B^2) placement one-hot."""
+    the (B,B) block grid with small one-hot matmuls, so the largest
+    intermediate is the (N, B^2) placement one-hot instead of (N,2,6B) dense
+    Jacobian rows."""
     B, F, D = dims.B, dims.F, dims.D
     Dr = 6 * B + 6
     dtype = state.P.dtype
 
-    r_imu, J_imu, cv_imu = _eval_imu(state, imu, G, dims)
-    r_proj, J_pi, J_pj, J_ex, J_dep, cv_proj, (oh_i, oh_j, oh_f) = _eval_proj(
-        state, proj, pixel_sqrt_info, dims, estimate_extrinsic
-    )
+    # named scopes: stable names for attributing device time in traces
+    with jax.named_scope("imu_factors"):
+        r_imu, J_imu, cv_imu = _eval_imu(state, imu, G, dims)
+    with jax.named_scope("proj_factors"):
+        r_proj, J_pi, J_pj, J_ex, J_dep, cv_proj, (oh_i, oh_j, oh_f) = _eval_proj(
+            state, proj, pixel_sqrt_info, dims, estimate_extrinsic
+        )
     prior_rows, cv_prior = _eval_priors(state, priors, dims)
 
     # imu + prior rows in the full layout (few rows; cheap)
@@ -538,8 +470,8 @@ def build_normal_equations(
         )
 
     # landmark system: per-feature scalar Hessian + coupling row (reduced).
-    # One one-hot matmul replaces three segment_sum scatters — scatters
-    # serialize on TPU; a (F x N)(N x Dr+2) matmul is MXU work.
+    # One (F x N)(N x Dr+2) one-hot matmul replaces three segment_sum
+    # scatters.
     payload = jnp.concatenate(
         [
             jnp.sum(J_dep * J_dep, axis=-1, keepdims=True),
@@ -568,11 +500,36 @@ def window_cost(state, imu, proj, priors, G, pixel_sqrt_info, dims):
     return jnp.sum(jnp.concatenate([cv_imu, cv_proj, cv_prior]))
 
 
-@functools.partial(
-    jax.jit,
-    static_argnames=("dims", "iters", "estimate_extrinsic", "use_pallas_schur",
-                     "use_pallas_linstep"),
-)
+def lm_linear_step(H, b, h, W, b_l, lam, dims: WindowDims):
+    """One damped LM step of the reduced system: Schur-eliminate the
+    landmarks, damp, Cholesky-solve the (D, D) pose system and back-substitute
+    the landmark increments. W is (F, Dr) in the reduced [pose | ex] layout;
+    its Schur correction touches only those rows/cols of the full system.
+    Returns (dx (D,), dl (F,))."""
+    B, D = dims.B, dims.D
+    dtype = H.dtype
+    h_d = h * (1.0 + lam)
+    h_safe = jnp.where(h_d > 1e-12, h_d, 1.0)
+    with jax.named_scope("schur_correction"):
+        C = _atb(W, W / h_safe[:, None])  # (Dr, Dr)
+        c_b = _atb(W, b_l / h_safe)  # (Dr,)
+    H_s = H
+    H_s = H_s.at[: 6 * B, : 6 * B].add(-C[: 6 * B, : 6 * B])
+    H_s = H_s.at[: 6 * B, 15 * B :].add(-C[: 6 * B, 6 * B :])
+    H_s = H_s.at[15 * B :, : 6 * B].add(-C[6 * B :, : 6 * B])
+    H_s = H_s.at[15 * B :, 15 * B :].add(-C[6 * B :, 6 * B :])
+    b_s = b.at[: 6 * B].add(-c_b[: 6 * B])
+    b_s = b_s.at[15 * B :].add(-c_b[6 * B :])
+    diagH = jnp.clip(jnp.diag(H), 1e-8, None)
+    H_d = H_s + jnp.diag(lam * diagH)
+    L = jnp.linalg.cholesky(H_d + 1e-12 * jnp.trace(H_d) / D * jnp.eye(D, dtype=dtype))
+    dx = jax.scipy.linalg.cho_solve((L, True), b_s)
+    dx_r = jnp.concatenate([dx[: 6 * B], dx[15 * B :]])
+    dl = (b_l - W @ dx_r) / h_safe
+    return dx, dl
+
+
+@functools.partial(jax.jit, static_argnames=("dims", "iters", "estimate_extrinsic"))
 def solve_window(
     state: WindowState,
     imu: ImuFactors,
@@ -584,27 +541,13 @@ def solve_window(
     iters: int = 10,
     estimate_extrinsic: bool = False,
     init_lambda: float = 1e-4,
-    use_pallas_schur: bool | None = None,
-    use_pallas_linstep: bool | None = None,
 ):
     """Levenberg–Marquardt with landmark Schur elimination; branchless
     accept/reject in a while_loop with a convergence early-out (the
     reference caps the solve at 8 ms / 10 iters, estimator.cpp:1124–1125 —
     easy frames converge in 3-5 iterations and the remaining budget is free
     latency). Returns (state, final_cost)."""
-    B, D = dims.B, dims.D
-    Dr = 6 * B + 6
     dtype = state.P.dtype
-    use_pallas = (
-        use_pallas_schur if use_pallas_schur is not None else _pallas_schur_enabled()
-    ) and dtype == jnp.float32  # kernel computes/stores f32; f64 keeps XLA path
-    # fused linear step: f32 only (the kernel computes in f32); f64 solves
-    # (init BA on CPU tests) keep the XLA path
-    use_linstep = (
-        use_pallas_linstep
-        if use_pallas_linstep is not None
-        else _pallas_linstep_enabled()
-    ) and dtype == jnp.float32
 
     # One factor evaluation per LM iteration: the normal equations built at
     # the accepted state are carried in the loop; a trial's evaluation is
@@ -622,37 +565,8 @@ def solve_window(
     def body(carry):
         i, done, st, ne, lam = carry
         H, b, h, W, b_l, cost0 = ne
-        if use_linstep:
-            # the whole linear step as ONE VMEM-resident Pallas program
-            from ..ops.linstep_pallas import linstep_pallas
-
-            dx, dl = linstep_pallas(H, b, W, h, b_l, lam, 6 * B)
-        else:
-            h_d = h * (1.0 + lam)
-            h_safe = jnp.where(h_d > 1e-12, h_d, 1.0)
-            # W is (F, Dr) in the reduced [pose | ex] layout; its Schur
-            # correction touches only those rows/cols of the full system
-            if use_pallas:
-                from ..ops.schur_pallas import schur_corr_pallas
-
-                C, c_b = schur_corr_pallas(W, h_safe, b_l)
-            else:
-                Wh = W / h_safe[:, None]
-                C = _atb(W, Wh)  # (Dr, Dr)
-                c_b = _atb(W, b_l / h_safe)  # (Dr,)
-            H_s = H
-            H_s = H_s.at[: 6 * B, : 6 * B].add(-C[: 6 * B, : 6 * B])
-            H_s = H_s.at[: 6 * B, 15 * B :].add(-C[: 6 * B, 6 * B :])
-            H_s = H_s.at[15 * B :, : 6 * B].add(-C[6 * B :, : 6 * B])
-            H_s = H_s.at[15 * B :, 15 * B :].add(-C[6 * B :, 6 * B :])
-            b_s = b.at[: 6 * B].add(-c_b[: 6 * B])
-            b_s = b_s.at[15 * B :].add(-c_b[6 * B :])
-            diagH = jnp.clip(jnp.diag(H), 1e-8, None)
-            H_d = H_s + jnp.diag(lam * diagH)
-            L = jnp.linalg.cholesky(H_d + 1e-12 * jnp.trace(H_d) / D * jnp.eye(D, dtype=dtype))
-            dx = jax.scipy.linalg.cho_solve((L, True), b_s)
-            dx_r = jnp.concatenate([dx[: 6 * B], dx[15 * B :]])
-            dl = (b_l - W @ dx_r) / h_safe
+        with jax.named_scope("lm_linear_step"):
+            dx, dl = lm_linear_step(H, b, h, W, b_l, lam, dims)
         trial = retract_state(st, dx, dl, dims)
         ne_trial = build(trial)
         cost1 = ne_trial[-1]

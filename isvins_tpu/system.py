@@ -64,9 +64,9 @@ class System:
         if pg_kf_on_cpu is None:
             # default: the worker's keyframe program leaves the accelerator
             # only at SMALL resolutions — there the CPU program is a few ms
-            # and staying off the (remote) accelerator avoids serializing
-            # with the frame path's dispatches; at full resolution the CPU
-            # Shi-Tomasi/BRIEF costs ~100 ms and starves the host instead
+            # and stays out of the frame path's device queue; at full
+            # resolution the CPU Shi-Tomasi/BRIEF would starve the host
+            # instead. Unmeasured on the H100 (ROADMAP Queue 3 debt 2).
             pg_kf_on_cpu = pg_thread and (cfg.camera.width * cfg.camera.height
                                           <= 400 * 300)
         self.pgbuilder = (

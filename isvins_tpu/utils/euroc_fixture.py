@@ -1,6 +1,6 @@
 """Write a real-format EuRoC `mav0/` tree from a synthetic world.
 
-Rehearsal fixture for the EuRoC driver path (VERDICT r03 #1/#5): no real
+Rehearsal fixture for the EuRoC driver path: no real
 dataset can be mounted in this environment, so this produces a directory
 that is byte-format-identical to a EuRoC sequence — nanosecond-stamped
 CSVs with the real headers, PNG grayscale frames named by timestamp,

@@ -4,7 +4,7 @@ The reference scatters printf timers through its threads (e.g. the
 t_solve/t_marg TicTocs in estimator.cpp:1124-1128 and the pose-graph
 thread's own timers); here a single global registry accumulates
 (count, total, max) per named phase so the e2e bench can publish an
-attributed per-frame budget breakdown (VERDICT r04 ask #2).
+attributed per-frame budget breakdown.
 
 Zero-cost when disabled (one attribute check per phase); phases nest
 freely — each phase records its own inclusive wall time.

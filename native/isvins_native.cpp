@@ -3,7 +3,7 @@
 // The reference implements its driver and queue layer in C++
 // (test/run_euroc.cpp:26-88 CSV readers; src/System.cpp:160-202
 // getMeasurements + :279-296 mid-frame interpolation). This module is the
-// TPU engine's native equivalent: the Python pipeline calls it through
+// engine's native equivalent: the Python pipeline calls it through
 // ctypes (isvins_tpu/native.py), with a pure-Python fallback when the
 // shared library has not been built.
 //

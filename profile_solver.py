@@ -1,112 +1,151 @@
-"""Per-stage timing of the window-solve LM iteration on the current backend.
+"""Device time of each stage of the product-width window solve, read from a
+jax.profiler trace of the real jitted solve.
 
-Times each stage of build_normal_equations + the linear-solve step as its own
-jitted function (warm, 30 reps) and compares their sum to the measured
-per-iteration marginal of the full solve. Stages whose time vanishes inside
-the full solve are fused/overlapped by XLA; stages that dominate here
-dominate there.
+    python profile_solver.py [--solves 5] [--out chiprun_out/solver_trace]
+
+The stages are the solver's named scopes (solver/window.py): imu_factors,
+proj_factors, lm_linear_step and, inside it, schur_correction. Each device
+event of the trace carries the name of the HLO instruction it ran (or, for
+a kernel XLA launched inside a CUDA graph, the kernel name, which for a
+fusion is the instruction name with '_' for '.'); the compiled program's
+op_name metadata says which scope that instruction came from. Library
+kernels inside a CUDA graph (cuBLAS) cannot be traced back to an
+instruction: run with XLA_FLAGS=--xla_gpu_enable_command_buffer= for a full
+attribution. Prints the device, the chained per-solve time, the device busy
+time per solve and each stage's device time per solve ('other' is what no
+scope claims). Run it on the GPU for device numbers; on the CPU backend it
+only checks the reduction.
 """
 
+import argparse
+import glob
+import json
+import re
 import time
+from collections import defaultdict
 
 import jax
 import jax.numpy as jnp
 
-from isvins_tpu.parallel import make_batch_problem
-from isvins_tpu.solver import WindowDims, solve_window
-from isvins_tpu.solver.window import (
-    _eval_imu,
-    _eval_priors,
-    _eval_proj,
-    build_normal_equations,
-    retract_state,
-)
+SCOPES = ("imu_factors", "proj_factors", "lm_linear_step", "schur_correction")
 
 
-def _t(fn, *args, n=30):
-    out = fn(*args)
-    jax.block_until_ready(out)
-    t0 = time.perf_counter()
-    for _ in range(n):
-        out = fn(*args)
-    jax.block_until_ready(out)
-    return (time.perf_counter() - t0) / n * 1e3
+def op_names(hlo_text):
+    """{instruction name: op_name metadata} of a compiled HLO module."""
+    pat = re.compile(r'^\s*(?:ROOT\s+)?%?([\w.\-]+)\s*=.*?metadata=\{[^}]*op_name="([^"]*)"')
+    out = {}
+    for line in hlo_text.splitlines():
+        m = pat.match(line)
+        if m:
+            out[m.group(1)] = m.group(2)
+    return out
+
+
+def device_events(xplane_path):
+    """[(instruction, duration_ns, start_ns)] of the kernels that ran on
+    devices (on the CPU backend, of the XLA ops on the host's compute
+    threads); `instruction` is the hlo_op stat, or the kernel name for
+    kernels launched inside a CUDA graph."""
+    pd = jax.profiler.ProfileData.from_file(xplane_path)
+    planes = [p for p in pd.planes if p.name.startswith("/device:")]
+    if not planes:
+        planes = [p for p in pd.planes if p.name == "/host:CPU"]
+    out = []
+    for plane in planes:
+        for line in plane.lines:
+            for ev in line.events:
+                op = dict(ev.stats).get("hlo_op")
+                if op == "command_buffer":
+                    op = ev.name
+                if op:
+                    out.append((op, ev.duration_ns, ev.start_ns))
+    return out
+
+
+def stage_times(hlo_text, events, scopes=SCOPES):
+    """Device ns per scope (an event counts toward every scope on its
+    op_name path), plus 'busy' (union of the event intervals) and 'all'."""
+    names = op_names(hlo_text)
+    names.update({k.replace(".", "_"): v for k, v in names.items()})
+    t = defaultdict(float)
+    for op, dur, _ in events:
+        path = names.get(op, "")
+        t["all"] += dur
+        hit = [s for s in scopes if f"/{s}/" in path or path.endswith(f"/{s}")]
+        for s in hit:
+            t[s] += dur
+        if not hit:
+            t["other"] += dur
+    busy, end = 0.0, -1.0
+    for _, dur, start in sorted(events, key=lambda e: e[2]):
+        lo, hi = max(start, end), start + dur
+        if hi > lo:
+            busy += hi - lo
+        end = max(end, hi)
+    t["busy"] = busy
+    return dict(t)
+
+
+def solve_chain(dims, args, solve_fn):
+    """jit(run)(state, n): n data-dependent solves (chained timing: one
+    dispatch, one scalar pull). A small index-derived perturbation between
+    links keeps the LM convergence early-out from trivializing later
+    links."""
+    state, imu, proj, priors, G, psi = args
+
+    @jax.jit
+    def run(st, n):
+        def link(i, s):
+            pert = (0.02 * jnp.cos(i + jnp.arange(s.P.shape[-2])[:, None])).astype(s.P.dtype)
+            return solve_fn(s._replace(P=s.P + pert), imu, proj, priors, G, psi, dims, 10)[0]
+        return jax.lax.fori_loop(0, n, link, st).P.sum()
+
+    return run
+
+
+def chained_ms(run, st, ns=(1, 11), reps=3):
+    """Per-solve ms: the marginal time between chain lengths ns."""
+    best = {}
+    for n in ns:
+        float(run(st, n))  # compile + warm
+        ts = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            float(run(st, n))
+            ts.append(time.perf_counter() - t0)
+        best[n] = min(ts)
+    return (best[ns[1]] - best[ns[0]]) / (ns[1] - ns[0]) * 1e3
+
+
+def profile(run, st, n_solves, out_dir):
+    """Stage ms per solve of `run` from one traced call of n_solves."""
+    hlo = run.lower(st, n_solves).compile().as_text()
+    float(run(st, n_solves))
+    with jax.profiler.trace(out_dir):
+        float(run(st, n_solves))
+    path = sorted(glob.glob(f"{out_dir}/**/*.xplane.pb", recursive=True))[-1]
+    t = stage_times(hlo, device_events(path))
+    return {k: v / n_solves / 1e6 for k, v in t.items()}
 
 
 def main():
-    dims = WindowDims(B=18, Vo=8, F=1000, N=3072)
-    state, imu, proj, priors, G, psi = make_batch_problem(1, dims, dtype=jnp.float32)
-    sq = lambda tree: jax.tree_util.tree_map(lambda a: a[0], tree)
-    st, im, pr, pri = sq(state), sq(imu), sq(proj), sq(priors)
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--solves", type=int, default=5)
+    ap.add_argument("--out", default="chiprun_out/solver_trace")
+    a = ap.parse_args()
 
-    B, D, F = dims.B, dims.D, dims.F
-    Dr = 6 * B + 6
-    dtype = st.P.dtype
+    import isvins_tpu
+    from isvins_tpu.solver import reference as ref
+    from isvins_tpu.solver.window import solve_window
 
-    stages = {}
-    stages["eval_imu"] = _t(jax.jit(lambda s: _eval_imu(s, im, G, dims)), st)
-    stages["eval_proj"] = _t(
-        jax.jit(lambda s: _eval_proj(s, pr, psi, dims, False)), st
-    )
-    stages["eval_priors"] = _t(jax.jit(lambda s: _eval_priors(s, pri, dims)), st)
-    stages["build_full"] = _t(
-        jax.jit(lambda s: build_normal_equations(s, im, pr, pri, G, psi, dims)), st
-    )
-
-    ne = jax.jit(lambda s: build_normal_equations(s, im, pr, pri, G, psi, dims))(st)
-    H, b, h, W, b_l, _ = ne
-
-    def linstep(H, b, h, W, b_l, lam):
-        h_d = h * (1.0 + lam)
-        h_safe = jnp.where(h_d > 1e-12, h_d, 1.0)
-        Wh = W / h_safe[:, None]
-        C = W.T @ Wh
-        c_b = W.T @ (b_l / h_safe)
-        H_s = H
-        H_s = H_s.at[: 6 * B, : 6 * B].add(-C[: 6 * B, : 6 * B])
-        H_s = H_s.at[: 6 * B, 15 * B :].add(-C[: 6 * B, 6 * B :])
-        H_s = H_s.at[15 * B :, : 6 * B].add(-C[6 * B :, : 6 * B])
-        H_s = H_s.at[15 * B :, 15 * B :].add(-C[6 * B :, 6 * B :])
-        b_s = b.at[: 6 * B].add(-c_b[: 6 * B])
-        b_s = b_s.at[15 * B :].add(-c_b[6 * B :])
-        diagH = jnp.clip(jnp.diag(H), 1e-8, None)
-        H_d = H_s + jnp.diag(lam * diagH)
-        L = jnp.linalg.cholesky(
-            H_d + 1e-12 * jnp.trace(H_d) / D * jnp.eye(D, dtype=dtype)
-        )
-        dx = jax.scipy.linalg.cho_solve((L, True), b_s)
-        dx_r = jnp.concatenate([dx[: 6 * B], dx[15 * B :]])
-        dl = (b_l - W @ dx_r) / h_safe
-        return dx, dl
-
-    lam = jnp.asarray(1e-4, dtype)
-    stages["schur+chol+solve"] = _t(jax.jit(linstep), H, b, h, W, b_l, lam)
-
-    def cholonly(H_d):
-        L = jnp.linalg.cholesky(H_d)
-        return jax.scipy.linalg.cho_solve((L, True), b)
-
-    H_d = H + jnp.eye(D, dtype=dtype)
-    stages["chol+trisolve_only"] = _t(jax.jit(cholonly), H_d)
-
-    dx, dl = jax.jit(linstep)(H, b, h, W, b_l, lam)
-    stages["retract"] = _t(
-        jax.jit(lambda s, dx, dl: retract_state(s, dx, dl, dims)), st, dx, dl
-    )
-
-    fn10 = jax.jit(
-        lambda s: solve_window(s, im, pr, pri, G, psi, dims, iters=10)
-    )
-    fn20 = jax.jit(
-        lambda s: solve_window(s, im, pr, pri, G, psi, dims, iters=20)
-    )
-    t10 = _t(fn10, st, n=20)
-    t20 = _t(fn20, st, n=10)
-    stages["full_solve_10it"] = t10
-    stages["per_iter_marginal"] = (t20 - t10) / 10
-
-    for k, v in stages.items():
-        print(f"{k:24s} {v:8.3f} ms")
+    isvins_tpu.enable_compile_cache()
+    dev = jax.devices()[0]
+    args = ref.product_problem()
+    run = solve_chain(ref.PRODUCT_DIMS, args, solve_window.__wrapped__)
+    res = {"device": dev.device_kind, "platform": dev.platform,
+           "chained_ms_per_solve": chained_ms(run, args[0]),
+           "stage_ms_per_solve": profile(run, args[0], a.solves, a.out)}
+    print(json.dumps(res))
 
 
 if __name__ == "__main__":

@@ -37,9 +37,8 @@ def main(argv=None, cfg=None, dims=None):
     cfg = cfg or euroc_config()
     # production threading topology (see System docstring): tracker
     # dispatch pipeline + pose-graph worker thread; the cross-frame solve
-    # pipeline stays off at EuRoC's full 752x480 resolution (A/B'd in
-    # realism_bench.py: the extra tunnel interleaving costs what the
-    # overlap buys there)
+    # pipeline stays off, as in chip_smoke.py's `system` phase (whether it
+    # pays on the H100 is unmeasured, ROADMAP Queue 3 debt 2)
     sys_ = System(cfg, dims, enable_loop=not args.no_loop, pipeline=True,
                   pg_thread=True)
     sys_.wait_pg_ready()  # finish worker prewarm before the replay clock starts
@@ -97,4 +96,7 @@ def main(argv=None, cfg=None, dims=None):
 
 
 if __name__ == "__main__":
+    import isvins_tpu
+
+    isvins_tpu.enable_compile_cache()
     main()

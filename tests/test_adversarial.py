@@ -1,4 +1,4 @@
-"""Adversarial realism (VERDICT r04 #7): photometric + dynamic nuisances —
+"""Adversarial realism: photometric + dynamic nuisances —
 motion blur, auto-exposure flicker, sensor-noise bursts, moving occluders —
 that real EuRoC MH/V imagery has and the clean renderer lacked. The tracker's
 flow-back gate + epipolar RANSAC (feature_tracker_simple.cpp:86-180

@@ -1,4 +1,4 @@
-"""EuRoC driver rehearsal (VERDICT r03 #5): no real dataset can be mounted
+"""EuRoC driver rehearsal: no real dataset can be mounted
 in this environment, so a byte-format-identical `mav0/` tree (nanosecond
 CSVs with real headers, PNG frames named by stamp, 17-column ground truth)
 is generated from the synthetic world and `run_euroc.main` replays it

@@ -183,3 +183,15 @@ def test_hostmath_numpy_twins_match_jnp():
         np.testing.assert_allclose(pn, np.asarray(pj), atol=1e-12)
         np.testing.assert_allclose(qn, np.asarray(qj2), atol=1e-12)
         np.testing.assert_allclose(hm.se3_adjoint_np(t1, q), np.asarray(geom.se3_adjoint(jnp.asarray(t1), jnp.asarray(q))), atol=1e-12)
+
+
+def test_host_cpu_placement():
+    """host_cpu() places new arrays on the CPU backend (a no-op context when
+    the CPU is the default backend, as in the tests)."""
+    import jax
+    import jax.numpy as jnp
+    from isvins_tpu.utils.devices import host_cpu
+
+    with host_cpu():
+        a = jnp.ones(3) + 1
+    assert a.devices() == {jax.devices("cpu")[0]}

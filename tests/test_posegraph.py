@@ -545,3 +545,30 @@ def test_async_optimize_dispatch_and_finalize():
     np.testing.assert_allclose(c_a, c_s, rtol=1e-12)
     np.testing.assert_allclose(db_async.edge_dt[: n - 1],
                                db_sync.edge_dt[: n - 1], atol=1e-12)
+
+
+def test_retrieval_scores_match_xor_popcount(rng):
+    """The retrieval pre-filter's batched Hamming scoring equals a plain
+    numpy XOR-popcount count of sub-threshold matches per keyframe."""
+    from isvins_tpu.posegraph.keyframe_db import _retrieval_scores
+
+    R, K, thresh = 16, 12, 100
+    qd = rng.integers(0, 2**32, size=(R, 8), dtype=np.uint32)
+    dbd = rng.integers(0, 2**32, size=(K, R, 8), dtype=np.uint32)
+    dbd[3] = qd  # exact duplicate keyframe
+    flip = np.uint32(1) << rng.integers(0, 32, size=(R // 2, 8)).astype(np.uint32)
+    dbd[5, : R // 2] = qd[: R // 2] ^ flip  # half the descriptors, 8 bits off
+    qv = np.ones(R, bool)
+    qv[-2:] = False
+    dbv = np.ones((K, R), bool)
+    dbv[7] = False
+
+    bits = np.unpackbits((qd[:, None, None, :] ^ dbd[None]).view(np.uint8), axis=-1)
+    dist = bits.reshape(R, K, R, -1).sum(-1)  # (query, kf, db row)
+    dist = np.where(dbv[None], dist, 512)
+    want = ((dist.min(-1) < thresh) & qv[:, None]).sum(0) / qv.sum()
+
+    got = np.asarray(_retrieval_scores(jnp.asarray(qd), jnp.asarray(qv),
+                                       jnp.asarray(dbd), jnp.asarray(dbv), thresh))
+    np.testing.assert_allclose(got, want, atol=1e-7)
+    assert got[3] == 1.0 and got[7] == 0.0 and 0.4 < got[5] < 0.7

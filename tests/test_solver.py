@@ -192,3 +192,64 @@ def test_fast_proj_matches_reference(rng):
         np.testing.assert_allclose(np.asarray(J_pi[k]), np.asarray(Jpi_ref), atol=1e-9)
         np.testing.assert_allclose(np.asarray(J_pj[k]), np.asarray(Jpj_ref), atol=1e-9)
         np.testing.assert_allclose(np.asarray(J_dep[k]), np.asarray(Jd_ref), atol=1e-9)
+
+
+def test_product_width_float32_solve_within_float64_bound():
+    """The float32 product-width window solve stays within the stated bound
+    of the float64 solve of the same inputs (the chip smoke check's
+    window_solve phase, here on the CPU backend)."""
+    from isvins_tpu.solver import reference as ref
+
+    args = ref.product_problem()
+    dev = ref.deviation(ref.solve(args), ref.solve(ref.as_float64(args)))
+    assert ref.within(dev), (dev, ref.F32_TOL)
+    assert dev["P"] > 0.0  # the two precisions really ran
+
+
+def test_lm_linear_step_matches_dense_float64_solve(rng):
+    """Schur elimination + damped Cholesky + back-substitution equals the
+    damped full (pose + landmark) system solved densely in float64."""
+    from isvins_tpu.solver.window import lm_linear_step
+
+    dims = WindowDims(B=6, Vo=3, F=40, N=0)
+    B, D, F = dims.B, dims.D, dims.F
+    Dr = 6 * B + 6
+    red = np.r_[np.arange(6 * B), np.arange(15 * B, D)]  # reduced [pose | ex]
+    # a random SPD full system [[H, W^T], [W, diag(h)]] in the solver layout
+    A = rng.normal(size=(D + F, D + F + 30))
+    M = A @ A.T + 50.0 * np.eye(D + F)
+    M[D:, D:] = np.diag(np.diag(M[D:, D:]))  # landmarks couple only via W
+    keep = np.zeros(D, bool)
+    keep[red] = True
+    M[D:, :D][:, ~keep] = 0.0
+    M[:D, D:][~keep, :] = 0.0
+    H, h = M[:D, :D], np.diag(M[D:, D:]).copy()
+    W = M[D:, :D][:, red]
+    b, b_l = rng.normal(size=D), rng.normal(size=F)
+    lam = 1e-3
+
+    dx, dl = lm_linear_step(*map(jnp.asarray, (H, b, h, W, b_l, lam)), dims)
+
+    Md = M.copy()
+    Md[np.arange(D), np.arange(D)] += lam * np.clip(np.diag(H), 1e-8, None)
+    Md[np.arange(D, D + F), np.arange(D, D + F)] *= 1.0 + lam
+    sol = np.linalg.solve(Md, np.r_[b, b_l])
+    np.testing.assert_allclose(np.asarray(dx), sol[:D], rtol=1e-8, atol=1e-10)
+    np.testing.assert_allclose(np.asarray(dl), sol[D:], rtol=1e-8, atol=1e-10)
+    assert W.shape == (F, Dr)
+
+
+def test_solve_window_dots_run_at_pinned_precision():
+    """Every dot of the lowered float32 solve carries HIGHEST precision (no
+    TF32), and the pin is the package default, not a per-call option."""
+    from isvins_tpu.solver import reference as ref
+
+    dims = WindowDims(B=6, Vo=3, F=32, N=64)
+    args = ref.product_problem(dims)
+    dots = [ln for ln in solve_window.lower(*args, dims, iters=2).as_text().splitlines()
+            if "dot_general" in ln]
+    assert dots and all("precision = [HIGHEST, HIGHEST]" in ln for ln in dots)
+    with jax.default_matmul_precision("default"):
+        dots = [ln for ln in solve_window.lower(*args, dims, iters=2).as_text().splitlines()
+                if "dot_general" in ln]
+    assert not any("HIGHEST" in ln for ln in dots)

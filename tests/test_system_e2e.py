@@ -144,7 +144,7 @@ def test_system_loop_closure_reduces_drift():
     assert sys_.pgbuilder.n_async_collects >= 1
     assert sys_.pgbuilder._pending_opt is None
 
-    # per-frame latency bound with loops enabled (VERDICT r03/r04 ask): in
+    # per-frame latency bound with loops enabled: in
     # steady state, after the one-off compile variants of the first steady
     # frames, no frame may stall on keyframe/retrieval/optimize work — the
     # worker threads own it. Relative bounds so the assertion holds on any
@@ -158,7 +158,7 @@ def test_system_loop_closure_reduces_drift():
     assert float(tail.max()) <= 8.0 * med, (med, float(tail.max()))
 
     # optimized keyframe trajectory must beat raw VIO keyframe trajectory
-    # QUANTITATIVELY (VERDICT r04 #9): at least halve the keyframe ATE on
+    # QUANTITATIVELY: at least halve the keyframe ATE on
     # the revisit world and land under an absolute ceiling
     ts, t_opt, q_opt = sys_.pgbuilder.trajectory()
     t_vio = db.vio_t[: db.n]
